@@ -18,10 +18,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 from kompass_core_tpu.utils.runtime import (
     enable_persistent_compilation_cache,
-    require_backend_or_cpu,
 )
 
-require_backend_or_cpu()
 enable_persistent_compilation_cache()
 
 from kompass_core_tpu.ops.solver import (  # noqa: E402

@@ -12,7 +12,8 @@ Mirrors the reference front-end's offline workflows end to end:
 5. rasterize a PCD point cloud into an occupancy grid
    (``datatypes.get_occupancy_grid_from_pcd``).
 
-Run on CPU: JAX_PLATFORMS=cpu python examples/offline_pipeline_demo.py
+Run: JAX_PLATFORMS=cpu python examples/offline_pipeline_demo.py (or on the GPU
+without JAX_PLATFORMS)
 """
 
 import math
@@ -20,15 +21,9 @@ import os
 import sys
 import tempfile
 
-os.environ.setdefault("JAX_PLATFORMS", "cpu")
-
 import numpy as np  # noqa: E402
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-
-import jax  # noqa: E402
-
-jax.config.update("jax_platforms", "cpu")
 
 from kompass_core_tpu.calibration import Calibration  # noqa: E402
 from kompass_core_tpu.control import Stanley, StanleyConfig  # noqa: E402

@@ -5,7 +5,8 @@ The build box exports the fleet-tick program for a SHARD-sized fleet
 any number of chips — loads that one artifact and drives a 4x-larger
 fleet by row-chunking the argument tree across its devices
 (``serving.sharded_fleet_call``): the tick is row-local per robot (zero
-cross-device collectives in the compiled steady state, SCALING_HLO.json),
+cross-device collectives in the compiled steady state, pinned by
+tests/test_scaling_hlo.py),
 so multi-chip serving needs no sharded program, no re-trace, and no
 mesh-aware export. The demo verifies the sharded outputs are
 bit-identical to a monolithic live fleet of the full size.

@@ -20,10 +20,8 @@ _sys.path.insert(0, _os.path.join(_os.path.dirname(__file__), ".."))
 
 from kompass_core_tpu.utils.runtime import (  # noqa: E402
     enable_persistent_compilation_cache,
-    require_backend_or_cpu,
 )
 
-require_backend_or_cpu()
 enable_persistent_compilation_cache()
 
 from kompass_core_tpu.control import (  # noqa: E402

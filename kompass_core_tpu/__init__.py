@@ -1,7 +1,8 @@
-"""kompass_core_tpu — a TPU-native sampling-based local-planning engine.
+"""kompass_core_tpu — a sampling-based local-planning engine in JAX.
 
 A from-scratch re-design of the capabilities of ``kompass-core``
-(GPU/SYCL robot navigation library) for TPU hardware:
+(GPU/SYCL robot navigation library) as XLA tensor programs, run on
+NVIDIA GPUs:
 
 - the full DWA control tick (velocity-window sampling, kinematic rollout,
   collision masking, multi-objective cost evaluation, argmin) is a single

@@ -4,7 +4,7 @@ Equivalent of the reference's ``DWA`` controller
 (``controllers/dwa.cpp`` + Python wrapper ``control/dwa.py:22-424``):
 target determination, rotate-in-place shortcut, curvature-adaptive
 prediction horizon, tracked-segment windowing — all host side — and the
-sampling/rollout/cost/argmin hot loop as one TPU program
+sampling/rollout/cost/argmin hot loop as one device program
 (``ops/solver.py``).
 
 Horizon conventions match the reference Python wrapper: DWAConfig horizons
@@ -142,7 +142,7 @@ class SamplingControlResult:
 
 
 class DWA(Follower):
-    """Dynamic Window Approach local planner, TPU-accelerated."""
+    """Dynamic Window Approach local planner, device-accelerated."""
 
     def __init__(
         self,
@@ -243,7 +243,7 @@ class DWA(Follower):
         self._result = SamplingControlResult()
         self._end_of_ctrl_horizon = max(int(config.control_horizon), 1)
         self._got_path = False
-        logger.info("DWA TPU controller ready")
+        logger.info("DWA controller ready")
 
     # ------------------------------------------------------------------
     # configuration helpers

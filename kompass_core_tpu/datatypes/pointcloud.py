@@ -2,8 +2,8 @@
 
 Covers the role of the reference's ``datatypes/pointcloud.py`` +
 ``utils/pointcloud.h`` (raw PointCloud2-style byte decoding). The decoded
-representation is a dense ``[N, 3]`` float32 array — the layout every TPU
-kernel in this package consumes.
+representation is a dense ``[N, 3]`` float32 array — the layout every
+device kernel in this package consumes.
 """
 
 from typing import Optional

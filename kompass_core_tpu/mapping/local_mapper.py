@@ -79,7 +79,7 @@ class MapConfig(BaseAttrs):
         default=0.0, validator=base_validators.in_range(0.0, 10.0)
     )
     baysian_update: bool = field(default=False)
-    max_num_threads: int = field(default=1)  # API parity; unused on TPU
+    max_num_threads: int = field(default=1)  # API parity; unused
     filter_limit: float = field(
         validator=base_validators.in_range(0.1, 1e2)
     )

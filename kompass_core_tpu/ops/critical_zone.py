@@ -1,6 +1,6 @@
 """Critical-zone emergency-stop check.
 
-TPU port of the reference ``CriticalZoneChecker``
+Port of the reference ``CriticalZoneChecker``
 (``utils/critical_zone_check.cpp`` CPU and ``critical_zone_check_gpu.cpp``
 SYCL): precompute the in-cone beam masks at setup, then per scan compute the
 robot-surface distance of every in-cone return and reduce to a slowdown

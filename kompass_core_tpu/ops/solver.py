@@ -1,6 +1,6 @@
-"""The DWA control tick as a single jitted TPU tensor program.
+"""The DWA control tick as a single jitted tensor program.
 
-This is the TPU-native redesign of the reference's hot path — the three
+This is the redesign of the reference's hot path — the three
 components that dominate its benchmarks (``trajectory_sampler.cpp``
 rollout+collision loops, ``cost_evaluator[_gpu].cpp`` cost kernels, and the
 argmin reduction) — fused into one XLA program over SoA arrays:
@@ -12,7 +12,7 @@ argmin reduction) — fused into one XLA program over SoA arrays:
              -> argmin (first-minimum-wins, matching the reference's
                 serial scan in ``cost_evaluator.cpp:102-106``)
 
-Design notes (TPU-first):
+Design notes:
   * All shapes are static (`SolverSpec`); the adaptive prediction horizon is
     a dynamic ``active_points`` scalar masking the trailing steps — changing
     the horizon never recompiles (the reference resizes buffers instead,
@@ -66,9 +66,6 @@ class SolverSpec:
     scan_size: int  # padded obstacle-point capacity
     seg_size: int  # padded tracked-segment capacity
     drop_samples: bool = True
-    # "xla": fused elementwise+reduce sweeps (portable, CPU-testable);
-    # "pallas": MXU cross-term kernel for the distance sweeps (TPU only)
-    backend: str = "xla"
     # True: the packed window block carries (current_vel[3], limits[9]) and
     # the dynamic window is computed ON DEVICE (fleet mode — removes the
     # per-robot host grid walk). False: host-built float64-exact window
@@ -94,9 +91,7 @@ class SolverSpec:
     # obstacle-cost sweeps evaluate it at its PREDICTED position
     # obs + v * t * dt for rollout step t. Costs two extra FMAs per
     # (pose, obstacle) pair in the hot sweep when enabled; with the flag
-    # off the compiled program is unchanged. All backends: the Pallas
-    # alternates carry the time term as a 7-feature dot
-    # (pallas_kernels fused moving kernels).
+    # off the compiled program is unchanged.
     moving_obstacles: bool = False
 
     @property
@@ -291,13 +286,13 @@ def _rollout(spec: SolverSpec, params: SolverParams, state, vels):
     s = jnp.sin(yaw_t)
     dx = (vx * c - vy * s) * dt
     dy = (vx * s + vy * c) * dt
-    # prefix sums as a triangular matmul: rides the MXU instead of the
-    # VPU's sequential scan (T is tiny, the matmul is ~free).
+    # prefix sums as a triangular matmul instead of a sequential scan
+    # (T is tiny, the matmul is ~free).
     # precision=HIGHEST is REQUIRED: preferred_element_type only sets the
-    # accumulator — under the TPU default the dx/dy INPUTS are truncated
-    # to bf16 (~2^-9 relative, mm-scale position error over 30 steps),
-    # which CPU-based parity tests cannot see (XLA CPU is true f32).
-    # Same pitfall the mapper lookup and the sweep shoot-out document.
+    # accumulator — at default precision a GPU runs an f32 dot in TF32,
+    # which truncates the dx/dy INPUTS (~2^-11 relative, mm-scale
+    # position error over 30 steps) where CPU-based parity tests cannot
+    # see it (XLA CPU is true f32).
     tril = jnp.tril(jnp.ones((T - 1, T - 1), jnp.float32)).T
     px = jnp.concatenate(
         [
@@ -331,11 +326,9 @@ def _pad_sweep_pow2(x):
     """Pad a 1-D sweep operand to the next power-of-two length (>=128)
     with +1e8 sentinels.
 
-    XLA's TPU lane reduction over a non-power-of-two minor axis falls off
-    the vectorized path: a min-reduce over 384 slots measures ~3x SLOWER
-    than the same reduce over 512 (1.54 vs 0.54 ms at S=2025, T=30, B=8
-    on v5e). The sentinel never wins a min, so padding is free accuracy-
-    wise and large perf-wise whenever a bucket size isn't a power of two.
+    The sentinel never wins a min, so padding changes no result. The
+    rule was tuned on the accelerator this code was first written for
+    and has not been measured on a GPU (ROADMAP Speed item 3).
     """
     n = x.shape[-1]
     target = max(128, 1 << (n - 1).bit_length())
@@ -381,16 +374,7 @@ def _min_obstacle_dist_sq_moving(px, py, obs_xy, obs_vel, time_step, pt_mask):
     vy = jnp.pad(obs_vel[:, 1], (0, oy.shape[0] - obs_vel.shape[0]))
     t = (jnp.arange(T, dtype=jnp.float32) * time_step)[None, :, None]
     # [S, T, O] fused reduce; the obstacle track ox + vx*t adds two FMAs
-    # per pair on top of the static sweep — still VPU-bound, still fused.
-    # Force-materializing the [T, O] track via optimization_barrier was
-    # measured and FALSIFIED (2026-08-20, same-session control): 128.47
-    # vs 128.3 us/solve without — the +9% moving cost is the [T, O]
-    # operand's per-(s,t,o) read pattern, not refused track FMAs. The
-    # carry-chained device-loop pair (DEVICE_LOOP.json k264) shows the
-    # loop form at parity with static (~0.122 ms both): with the buffer
-    # loop-invariant except one scalar, XLA hoists the track work out of
-    # the scan — honest for throughput-loop serving, while this straight
-    # program's +9% is the honest per-dispatch cost.
+    # per pair on top of the static sweep, still fused.
     d2 = jnp.min(
         (px[:, :, None] - (ox[None, None, :] + vx[None, None, :] * t)) ** 2
         + (py[:, :, None] - (oy[None, None, :] + vy[None, None, :] * t)) ** 2,
@@ -408,7 +392,7 @@ def _min_box_dist_sq(spec, params, state, vels, px, py, obs_xy, pt_mask,
 
     Zero inside the footprint. Role of the reference's FCL box collision
     object (``collision_check.cpp:118-163``) without the broadphase: the
-    rotate-into-body-frame + axis clamp is ~4 extra VPU ops per
+    rotate-into-body-frame + axis clamp is ~4 extra f32 ops per
     (pose, obstacle) pair on top of the point sweep.
     """
     if box_hl is None:
@@ -494,9 +478,9 @@ def _apply_truncation(px, py, vels, truncate_ok, i_col, last_free, T):
     t_idx = jnp.arange(T)[None, :]
     j_idx = jnp.arange(T - 1)[None, :]
 
-    # per-row pick as a one-hot masked sum: take_along_axis lowers to a
-    # serialized per-row gather under the fleet vmap (the banned pattern —
-    # see CLAUDE.md); at T<=~64 the [S, T] multiply-add is effectively free
+    # per-row pick as a one-hot masked sum instead of take_along_axis (a
+    # per-row gather under the fleet vmap); at T<=~64 the [S, T]
+    # multiply-add is effectively free
     lf_sel = t_idx == last_free[:, None]
     lf_x = jnp.sum(jnp.where(lf_sel, px, 0.0), axis=1, keepdims=True)
     lf_y = jnp.sum(jnp.where(lf_sel, py, 0.0), axis=1, keepdims=True)
@@ -519,9 +503,8 @@ def _apply_truncation(px, py, vels, truncate_ok, i_col, last_free, T):
 def _trajectory_end_points(px, py, active_points):
     """[S] endpoint coordinates at index active_points - 1.
 
-    Uses dynamic_slice (uniform index across samples) — take_along_axis
-    would lower to a per-row gather, which is an order of magnitude slower
-    on TPU under vmap.
+    Uses dynamic_slice (uniform index across samples) instead of
+    take_along_axis, which lowers to a per-row gather under vmap.
     """
     idx = jnp.clip(active_points - 1, 0, px.shape[1] - 1)
     end_x = jax.lax.dynamic_slice_in_dim(px, idx, 1, axis=1)[:, 0]
@@ -529,26 +512,23 @@ def _trajectory_end_points(px, py, active_points):
     return end_x, end_y
 
 
-def _path_cost(px, py, seg_x, seg_y, seg_last_xy, seg_total_len, active_points,
-               d2_seg=None):
+def _path_cost(px, py, seg_x, seg_y, seg_last_xy, seg_total_len,
+               active_points):
     """Average min-distance of every rollout point to the tracked segment,
-    plus normalized endpoint distance, halved (``cost_evaluator.cpp:111-141``).
-
-    ``d2_seg``: optional precomputed per-point min squared segment distance
-    [S, T] (inf at masked points) from the Pallas backend."""
+    plus normalized endpoint distance, halved
+    (``cost_evaluator.cpp:111-141``)."""
     S, T = px.shape
     t_idx = jnp.arange(T)
     pt_mask = t_idx < active_points
-    if d2_seg is None:
-        # [S, T, SEG] fused min reduce; padded segment slots at +1e8,
-        # sweep axis pow2-padded (see _pad_sweep_pow2)
-        sx = _pad_sweep_pow2(seg_x)
-        sy = _pad_sweep_pow2(seg_y)
-        d2_seg = jnp.min(
-            (px[:, :, None] - sx[None, None, :]) ** 2
-            + (py[:, :, None] - sy[None, None, :]) ** 2,
-            axis=-1,
-        )
+    # [S, T, SEG] fused min reduce; padded segment slots at +1e8,
+    # sweep axis pow2-padded (see _pad_sweep_pow2)
+    sx = _pad_sweep_pow2(seg_x)
+    sy = _pad_sweep_pow2(seg_y)
+    d2_seg = jnp.min(
+        (px[:, :, None] - sx[None, None, :]) ** 2
+        + (py[:, :, None] - sy[None, None, :]) ** 2,
+        axis=-1,
+    )
     d = jnp.sqrt(d2_seg)
     avg = jnp.sum(jnp.where(pt_mask[None, :], d, 0.0), axis=1) / active_points.astype(
         jnp.float32
@@ -581,9 +561,9 @@ def _goal_cost(px, py, seg_x, seg_y, seg_arc, ref_total_len, active_points):
     ) ** 2  # [S, SEGp]; padded slots huge
     j_star = jnp.argmin(d2, axis=1)
     min_d2 = jnp.min(d2, axis=1)
-    # arc length at the closest index via a one-hot masked sum: a per-row
-    # gather (seg_arc[j_star]) lowers to a slow TPU gather under vmap,
-    # while this is one more cheap [S, SEG] elementwise+reduce pass
+    # arc length at the closest index via a one-hot masked sum instead of
+    # a per-row gather (seg_arc[j_star]): one more [S, SEG]
+    # elementwise+reduce pass
     arcp = jnp.pad(seg_arc, (0, sx.shape[0] - seg_arc.shape[0]))
     onehot = jnp.arange(arcp.shape[0])[None, :] == j_star[:, None]
     arc_at = jnp.sum(jnp.where(onehot, arcp[None, :], 0.0), axis=1)
@@ -676,9 +656,10 @@ def dwa_solve(
     ``moving_obstacles`` (min over a union; zero-velocity scan rows are
     bit-equal static), but the main sweep stays at its static width and
     op count — the fleet uses this to keep a pow2-full scan bucket from
-    crossing a lane boundary when mover slots are added
-    (``FleetSpec.split_mover_sweep``; MOVING_BENCH.json measures both
-    forms). Pad rows: position +1e8, velocity 0.
+    growing to the next power of two when mover slots are added
+    (``DeviceFleet(split_mover_sweep=True)``;
+    ``benchmark/moving_bench.py`` times both forms). Pad rows: position
+    +1e8, velocity 0.
     """
     active_points = jnp.asarray(active_points, jnp.int32)
     vels, valid = _build_velocity_grid(spec, window)
@@ -689,42 +670,10 @@ def dwa_solve(
     # single obstacle sweep shared by collision + obstacle cost
     t_idx = jnp.arange(spec.max_points)
     pt_mask = t_idx < active_points
-    d2_seg = None
-    if moving and spec.backend in ("pallas", "pallas_vpu", "pallas_v1"):
-        # Pallas moving sweep: the constant-velocity track expands to a
-        # 7-feature dot per (point, obstacle) pair, so the alternates
-        # keep feature parity with the XLA path (VERDICT r4 #6); the
-        # round-1 single-sweep v1 kernel predates the fused form and
-        # shares the fused moving kernel here
-        from .pallas_kernels import fused_min_dist_sq
-
-        d2_obs, d2_seg = fused_min_dist_sq(
-            px, py, obs_xy, seg_x, seg_y, pt_mask,
-            variant="vpu" if spec.backend == "pallas_vpu" else "mxu",
-            obs_vel=obs_vel, time_step=params.time_step,
-        )
-    elif moving:
+    if moving:
         d2_obs = _min_obstacle_dist_sq_moving(
             px, py, obs_xy, obs_vel, params.time_step, pt_mask
         )
-    elif spec.backend in ("pallas", "pallas_vpu"):
-        # fused two-sweep kernel: one pass over the point axis computes
-        # BOTH min-distance fields (~88% of the solve at the BASELINE
-        # workload); "pallas" = MXU cross-term tiles, "pallas_vpu" =
-        # broadcast-FMA tiles
-        from .pallas_kernels import fused_min_dist_sq
-
-        d2_obs, d2_seg = fused_min_dist_sq(
-            px, py, obs_xy, seg_x, seg_y, pt_mask,
-            variant="mxu" if spec.backend == "pallas" else "vpu",
-        )
-    elif spec.backend == "pallas_v1":
-        # round-1 single-sweep kernel (kept for comparison benches)
-        from .pallas_kernels import min_obstacle_dist_sq_mxu
-
-        d2_obs = min_obstacle_dist_sq_mxu(px, py, obs_xy, pt_mask)
-        seg_xy = jnp.stack([seg_x, seg_y], axis=1)
-        d2_seg = min_obstacle_dist_sq_mxu(px, py, seg_xy, pt_mask)
     else:
         d2_obs = _min_obstacle_dist_sq(px, py, obs_xy, pt_mask)
 
@@ -777,7 +726,6 @@ def dwa_solve(
         )
     if spec.drop_samples:
         # drop mode never truncates: skip the per-row gathers entirely
-        # (they lower to slow TPU gathers under vmap)
         vel_traj = jnp.broadcast_to(
             vels[:, None, :], (spec.num_samples, spec.max_points - 1, 3)
         )
@@ -787,8 +735,8 @@ def dwa_solve(
         )
         # truncation freezes path points at path[last_free]; their obstacle
         # distance equals d2_obs[:, last_free] — adjust without re-sweeping.
-        # one-hot masked sums instead of take_along_axis: the per-row
-        # gather serializes under the fleet vmap (banned pattern)
+        # one-hot masked sums instead of take_along_axis (a per-row
+        # gather under the fleet vmap)
         lf_sel = t_idx[None, :] == last_free[:, None]
         frozen = truncate_ok[:, None] & (t_idx[None, :] > i_col[:, None])
         if moving:
@@ -797,25 +745,10 @@ def dwa_solve(
             # it — the static freeze-patch below would pin the distance
             # at its last_free value. Re-sweep from the truncated
             # (frozen) positions instead; only this mode pays the
-            # second sweep. The re-sweep uses the SAME backend kernel
-            # as the admissibility sweep — mixing the Pallas 7-feature
-            # dot with the XLA sub/square form would compute the cost
-            # from a differently-rounded field than the admissibility
-            # decision (and silently bill the dominant sweep to XLA in
-            # any pallas-backend benchmark)
-            if spec.backend in ("pallas", "pallas_vpu", "pallas_v1"):
-                from .pallas_kernels import fused_min_dist_sq
-
-                d2_obs, d2_seg = fused_min_dist_sq(
-                    px, py, obs_xy, seg_x, seg_y, pt_mask,
-                    variant="vpu" if spec.backend == "pallas_vpu"
-                    else "mxu",
-                    obs_vel=obs_vel, time_step=params.time_step,
-                )
-            else:
-                d2_obs = _min_obstacle_dist_sq_moving(
-                    px, py, obs_xy, obs_vel, params.time_step, pt_mask
-                )
+            # second sweep
+            d2_obs = _min_obstacle_dist_sq_moving(
+                px, py, obs_xy, obs_vel, params.time_step, pt_mask
+            )
         else:
             # where-select before the sum: a bare multiply would turn
             # any inf in unselected slots into NaN (inf * 0)
@@ -832,18 +765,6 @@ def dwa_solve(
                 params.time_step, pt_mask,
             )
             d2_obs = jnp.minimum(d2_obs, d2_mov)
-        if d2_seg is not None and not moving:
-            # same freeze for the pallas-precomputed segment sweep — the
-            # XLA path recomputes from the truncated px/py inside
-            # _path_cost, so only the fused-kernel field needs the patch.
-            # Skipped under `moving`: the backend-matched re-sweep above
-            # already recomputed d2_seg FROM the frozen positions, where
-            # this patch is a bit-identical no-op (the segment field has
-            # no time term) that would only cost an extra one-hot sum
-            d2s_lf = jnp.sum(
-                jnp.where(lf_sel, d2_seg, 0.0), axis=1, keepdims=True
-            )
-            d2_seg = jnp.where(frozen, d2s_lf, d2_seg)
 
     acc_limits = (params.acc_limit_vx, params.acc_limit_vy, params.acc_limit_omega)
     f32 = jnp.float32
@@ -861,7 +782,7 @@ def dwa_solve(
 
     pathc = _path_cost(
         px, py, seg_x, seg_y, (seg_last_x, seg_last_y), seg_total_len,
-        active_points, d2_seg=d2_seg,
+        active_points,
     )
     total += jnp.where(
         has_path & (params.weight_path > 0), params.weight_path * pathc, 0.0
@@ -895,7 +816,7 @@ def dwa_solve(
     found = jnp.any(admissible)
 
     # row extraction via dynamic_slice (int-indexing would lower to a
-    # batched gather under vmap — an order of magnitude slower on TPU)
+    # batched gather under vmap)
     take_row = lambda a: jax.lax.dynamic_index_in_dim(  # noqa: E731
         a, best, axis=0, keepdims=False
     )
@@ -1030,10 +951,9 @@ def make_dwa_solver(spec: SolverSpec, custom_costs: Sequence = ()):
 # single-buffer (packed) interface
 # ---------------------------------------------------------------------------
 #
-# Host <-> device transfers dominate small-batch control-loop latency (each
-# separate array is a separate transfer; through a remote-attached chip each
-# transfer is a round trip). The packed interface moves ONE f32 buffer per
-# tick in each direction — the TPU-native analog of the reference GPU
+# Host <-> device transfers weigh on small-batch control-loop latency (each
+# separate array is a separate transfer). The packed interface moves ONE
+# f32 buffer per tick in each direction — the analog of the reference GPU
 # backend's persistent device buffers + one memcpy batch per call
 # (``cost_evaluator_gpu.cpp:220-235``).
 

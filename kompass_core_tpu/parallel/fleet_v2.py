@@ -81,13 +81,12 @@ class DeviceFleet:
             int(np.prod(mesh.devices.shape)) if mesh is not None else 1
         )
         self._n = ((self.num_robots + n_dev - 1) // n_dev) * n_dev  # padded
-        # dispatch batch 64 is the measured per-solve optimum on v5e
-        # (BATCH_CLIFF.json: per-batch time follows the batch dim's
-        # divisibility; 64 is a singular ~110 us optimum). Big fleets run
-        # the robot axis as a lax.map over 64-row blocks INSIDE the
-        # compiled tick (one dispatch per tick, chunk-64 tiling at any
-        # fleet size — measured 117 us/solve at 256 rows vs 137
-        # monolithic). Disabled under a mesh (the robot axis is sharded
+        # Big fleets run the robot axis as a lax.map over
+        # ``dispatch_chunk``-row blocks INSIDE the compiled tick (one
+        # dispatch per tick, the same tiling at any fleet size). The
+        # default of 64 was tuned on the accelerator this code was first
+        # written for and has not been measured on a GPU (ROADMAP Speed
+        # item 3). Disabled under a mesh (the robot axis is sharded
         # instead; per-chip chunking via parallel/fleet.py applies there).
         self._chunk = 0
         if mesh is None and dispatch_chunk and self._n > dispatch_chunk:
@@ -97,8 +96,7 @@ class DeviceFleet:
             )
 
         # --- heterogeneity: per-robot limits / kinematics / shapes -------
-        # (the reference is per-robot-configured by construction; VERDICT
-        # r1 missing #5)
+        # (the reference is per-robot-configured by construction)
         if isinstance(ctrl_limits, RobotCtrlLimits):
             limits_list = [ctrl_limits] * self.num_robots
         else:
@@ -156,12 +154,10 @@ class DeviceFleet:
             # its guaranteed-pad tail — ops/fleet_solver), so the bucket
             # must hold rays + M; when rays alone already fill a pow2
             # bucket, any M widens the sweep to the next power of two
-            # (the same lane rule that prices peer avoidance).
-            # split_mover_sweep=True keeps the bucket at rays only and
-            # runs the movers through a separate narrow moving sweep —
-            # bit-identical commands, but measured SLOWER than the
-            # tail-slot default (42.9 vs 41.3 ms/tick, MOVING_BENCH.json
-            # r5_remeasure); kept as the measured alternative
+            # (ops/solver._pad_sweep_pow2). split_mover_sweep=True keeps
+            # the bucket at rays only and runs the movers through a
+            # separate narrow moving sweep — bit-identical commands;
+            # benchmark/moving_bench.py times both forms
             scan_size=max(256, _round_up(
                 scan_rays
                 + (0 if split_mover_sweep else tracked_obstacles), 256
@@ -171,8 +167,8 @@ class DeviceFleet:
             device_window=True,
             dynamic_box=has_box,
             # tracked movers / predicted peers ride the sweep at their
-            # constant-velocity positions (ops/solver.py moving sweep;
-            # measured cost in MOVING_BENCH.json); split movers carry
+            # constant-velocity positions (ops/solver.py moving sweep);
+            # split movers carry
             # their velocities in the narrow sweep instead, so only
             # peer prediction still needs the per-point velocity block
             moving_obstacles=(
@@ -197,9 +193,9 @@ class DeviceFleet:
         # the same fused sweep the scan rides — collision pruning AND the
         # obstacle cost both respect peers, zero host involvement. The
         # per-robot sweep grows by N*(ring+1) points (O(N^2) fleet-wide).
-        # Under a mesh the peer state crosses chips as ONE bounded
+        # Under a mesh the peer state crosses devices as ONE bounded
         # all_gather ([N, 7] f32) per tick — the only collective in the
-        # steady state (SCALING_HLO.json fleet_v2_tick_peers_mesh).
+        # steady state (tests/test_scaling_hlo.py).
         self._peer_cfg = None
         if peer_prediction and not peer_avoidance:
             raise ValueError(
@@ -699,8 +695,7 @@ class DeviceFleet:
         obstacle at the wrong bearing; the host compare is tiny next to
         the device tick), fill the packed input matrix in place, and
         return the trailing safety args. Guards the ticked-before-set-up
-        misuse with a clear error instead of a trace-time TypeError
-        minutes into remote-backend warmup."""
+        misuse with a clear error instead of a trace-time TypeError."""
         if self._paths is None or self._carry is None:
             raise RuntimeError(
                 "call set_paths() before ticking — the fleet has no "
@@ -725,9 +720,8 @@ class DeviceFleet:
                             tracked=None):
         """K carry-chained control ticks in ONE dispatch per chunk.
 
-        The RTT-amortization API (VERDICT r2 #7): a single
-        remote-attached robot gets k commands per host round trip —
-        per-tick e2e cost drops from ~RTT to ~RTT/k + compute. The scan
+        A robot gets k commands per host round trip — per-tick cost
+        drops from one round trip to a k-th of one plus compute. The scan
         is frozen to world-frame obstacles at the tick-0 pose
         (static-world assumption over the k-tick span); the robot state
         is integrated on device through the same kinematic update the
@@ -796,8 +790,7 @@ class DeviceFleet:
 
         # ONE dispatch, ONE packed upload, ONE fetch per tick: the robot
         # axis runs as an in-program lax.map over 64-row blocks
-        # (make_fleet_tick chunk param; BATCH_CLIFF.json), so big fleets
-        # get the batch-64 tiling optimum without per-chunk dispatches
+        # (make_fleet_tick chunk param), with no per-chunk dispatches
         safety_extra = self._prepare_tick_inputs(
             states, vels, ranges, angles, tracked
         )

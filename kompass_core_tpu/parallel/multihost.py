@@ -1,19 +1,19 @@
-"""Multi-host pod-slice runtime helpers + the fleet control runtime.
+"""Multi-process runtime helpers + the fleet control runtime.
 
 The reference is single-robot/single-process; this is the new distributed
-component SURVEY §2.8 calls for: many robot scenarios served by a TPU pod
-slice. Topology:
+component SURVEY §2.8 calls for: many robot scenarios served by several
+GPUs, on one host or many. Topology:
 
-  * every robot's solve is chip-local (no cross-chip traffic in the hot
-    loop); the robot axis is sharded over the mesh,
+  * every robot's solve is device-local (no cross-device traffic in the
+    hot loop); the robot axis is sharded over the mesh,
   * hosts own the per-robot follower state (target determination, horizon
     adaptation) and pack one solver-input row per robot per tick,
-  * DCN carries only scenario dispatch/collection (host<->host); ICI is
-    used only when a single solve's sample axis is sharded
-    (``make_sample_parallel_solver``) or for fleet-level metric reductions.
+  * collectives run only when a single solve's sample axis is sharded
+    (``make_sample_parallel_solver``) or for fleet-level reductions.
 
-``initialize_multihost`` wraps ``jax.distributed.initialize`` for real
-pod-slice runs; tests exercise the same code on a virtual CPU mesh.
+``initialize_multihost`` wraps ``jax.distributed.initialize`` for runs
+with several processes; tests exercise the same code on a virtual CPU
+mesh.
 """
 
 import time
@@ -31,12 +31,16 @@ def initialize_multihost(
     coordinator_address: Optional[str] = None,
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
+    local_device_ids: Optional[Sequence[int]] = None,
 ) -> None:
-    """Initialize the JAX distributed runtime (no-op for single host).
+    """Initialize the JAX distributed runtime (no-op for one process).
 
-    On a pod slice, call once per host before creating meshes; afterwards
-    ``jax.devices()`` spans every chip in the slice while
-    ``jax.local_devices()`` are this host's chips.
+    Call once per process before creating meshes; afterwards
+    ``jax.devices()`` spans every device of every process while
+    ``jax.local_devices()`` are this process's. ``local_device_ids`` names
+    the GPUs this process opens: with one process per card, pass that
+    card's index — without it every process opens every card of its host
+    and reserves most of each card's memory.
     """
     import jax
 
@@ -46,6 +50,7 @@ def initialize_multihost(
         coordinator_address=coordinator_address,
         num_processes=num_processes,
         process_id=process_id,
+        local_device_ids=local_device_ids,
     )
 
 
@@ -306,8 +311,8 @@ class FleetRuntime:
         """Device dispatch with one re-dispatch on failure.
 
         The runtime failure story SURVEY §5 calls for (the single-process
-        reference has none): a transient device/runtime error (preempted
-        remote device, OOM from a concurrent tenant) is retried once;
+        reference has none): a transient device/runtime error (a lost
+        device, OOM from a concurrent tenant) is retried once;
         a second failure degrades this tick to safe-stop commands and
         increments ``solver_failures`` for the operator to alarm on.
         """

@@ -15,8 +15,8 @@ The edge tensor and the relaxation are the single-robot roadmap
 kernel's own helpers (``planner.build_edge_weights`` /
 ``planner.minplus_relax``) — one implementation serves both paths.
 
-TPU notes: the relaxation is a [N, M, M] broadcast-min — VPU-bound,
-fused by XLA; the edge tensor amortizes across the fleet exactly like
+Device notes: the relaxation is a [N, M, M] broadcast-min, fused by
+XLA; the edge tensor amortizes across the fleet exactly like
 the fleet mapper amortizes the beam lookup (``ops/mapping.py``).
 """
 

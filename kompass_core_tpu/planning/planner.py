@@ -2,7 +2,7 @@
 
 Covers the role of the reference's OMPL integration
 (``planning/ompl.cpp`` + ``ompl_bindings/bindings.cpp`` +
-``third_party/ompl/planner.py``) with a TPU-native design instead of a
+``third_party/ompl/planner.py``) with a tensor-program design instead of a
 third-party C++ dependency: the entire planning problem — sampling, edge
 validity, graph search — is expressed as dense tensor programs.
 
@@ -980,7 +980,7 @@ def _solve_prm(planner: GlobalPlanner, prob, seed=0) -> Optional[np.ndarray]:
     path = _trace_prm_path(np.asarray(pts), np.asarray(dist), np.asarray(pred))
     if path is not None and len(path) >= relax_iters:
         # Bellman-Ford ran relax_iters rounds; a solution using that many
-        # hops may be truncated/suboptimal (VERDICT r1 weak #8)
+        # hops may be truncated/suboptimal
         logger.warning(
             "PRM relaxation cap (%d iters) binds: solution uses %d hops; "
             "consider fewer samples or a larger connection radius",
@@ -1048,7 +1048,7 @@ def _solve_rrt(planner: GlobalPlanner, prob, seed=0, rewire=False,
         # lazy semantics: growth skipped motion checks; validate the traced
         # solution now (OMPL's lazy path-validation step). On failure,
         # repair by re-solving the same seed with motion checks on — the
-        # TPU analog of OMPL's check-on-demand edge removal loop (the
+        # device analog of OMPL's check-on-demand edge removal loop (the
         # optimistic pass costs ~nothing; the checked pass is the repair).
         for a, b in zip(pts[:-1], pts[1:]):
             if not planner._segment_free_host(a, b):
@@ -1142,7 +1142,7 @@ from .planners_trees import (  # noqa: E402
 planner_registry: Dict[str, Callable] = {
     "PRM": _solve_prm,
     "PRMstar": _solve_prm_star,
-    "LazyPRM": _solve_prm,  # TPU batch-checks all edges up front; laziness
+    "LazyPRM": _solve_prm,  # the device batch-checks all edges up front; laziness
     # buys nothing when the whole edge matrix is one fused kernel
     "LazyPRMstar": _solve_prm_star,  # same collapse at the PRM* radius
     "RRT": partial(_solve_rrt, rewire=False),

@@ -2,7 +2,7 @@
 tree planners, and the batch bidirectional wavefront.
 
 Completes the registry toward the reference's 29 bound OMPL geometric
-planners (``ompl_bindings/bindings.cpp:63-444``) with TPU-native
+planners (``ompl_bindings/bindings.cpp:63-444``) with tensor-program
 re-implementations of the remaining algorithm families:
 
   * **TRRT** (Jaillet, Cortes, Simeon 2010) — the reference front-end's
@@ -24,7 +24,7 @@ re-implementations of the remaining algorithm families:
   * **ProjEST**: EST with projection-grid density estimation (OMPL's
     grid-based EST variant) instead of radius-based density.
   * **PDST** (Ladd & Kavraki 2004): deterministic lowest-priority
-    selection; on selection a node's priority doubles (the TPU analog of
+    selection; on selection a node's priority doubles (the device analog of
     PDST's cell subdivision pushing the split sample down the queue) and
     the new node inherits the doubled priority.
   * **STRIDE** (Gipson, Moll, Kavraki 2013): EST-style growth where the

@@ -29,7 +29,7 @@ def set_log_file(file_path: str) -> None:
 
 
 def get_available_accelerators() -> List[str]:
-    """Enumerate JAX devices (TPU chips, or CPU fallback)."""
+    """Enumerate JAX devices."""
     import jax
 
     return [f"{d.platform}:{d.id} {d.device_kind}" for d in jax.devices()]

@@ -19,7 +19,7 @@ shares no code with the system under test. The only intentional divergence
 from the C++ is the collision model: the reference checks the robot shape
 against an octree of the scan via FCL (``collision_check.cpp:118-163``,
 not buildable here); this oracle uses the same circle (radius + margin) /
-oriented-box surface models the TPU engine calibrated against FCL
+oriented-box surface models the engine calibrated against FCL
 (``tests/test_collision_model.py``), implemented independently as scalar
 loops. Everything downstream of the collision decision — drop/truncate,
 costs, winner — is transcribed from the C++ verbatim.

@@ -5,12 +5,38 @@ the ctor wraps the half-cone with the reference's normalize-to-[-pi, pi)
 angle helper, preset classifies beam directions through the sensor
 transform into forward/backward cones, and check walks the in-cone
 indices with the early-return-0.0 / running-min-slowdown loop.
+
+``cloud_to_scan`` is the float64 cloud -> scan binning
+(``pointcloud.h:116-176``) that feeds it from a point cloud.
 """
 
 import math
 from typing import List
 
-__all__ = ["CriticalZoneOracle"]
+import numpy as np
+
+__all__ = ["CriticalZoneOracle", "cloud_to_scan"]
+
+
+def cloud_to_scan(points, num_bins, range_max, min_z, max_z):
+    """Per-bin min range of an [N, 3] cloud in float64: z filter (a
+    negative ``max_z`` disables the ceiling, ``pointcloud.h:159``),
+    origin filter, atan2 bins of width 2*pi/num_bins, clipped to
+    ``range_max``. NaN points fall out at the filters. Returns
+    ``(ranges [num_bins], u [N])`` where ``u`` is each point's bearing in
+    bin widths."""
+    p = np.asarray(points, np.float64)
+    r2 = p[:, 0] ** 2 + p[:, 1] ** 2
+    with np.errstate(invalid="ignore"):
+        ok = (r2 >= 1e-6) & (p[:, 2] >= min_z)
+        if max_z >= 0:
+            ok &= p[:, 2] <= max_z
+    u = np.mod(np.arctan2(p[:, 1], p[:, 0]), 2 * np.pi) / (
+        2 * np.pi / num_bins)
+    bins = np.minimum(u[ok].astype(int), num_bins - 1)
+    out = np.full(num_bins, np.inf)
+    np.minimum.at(out, bins, np.sqrt(r2[ok]))
+    return np.minimum(out, range_max), u
 
 
 def _normalize_to_minus_pi_pi(a: float) -> float:

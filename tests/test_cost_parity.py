@@ -2,10 +2,9 @@
 
 Role of the reference's ``tests/test_cost_parity.py`` (CPU vs GPU builds
 diffed at rel-tol 1e-4 via COST_PARITY_JSON dumps): run the identical
-packed solve on every available backend combination — XLA path vs the
-Pallas MXU path, and (when running under ``pytest -m parity`` on real
-hardware) CPU vs TPU — and require per-sample cost agreement at rel-tol
-1e-4.
+packed solve on the CPU and, on a machine with a card (``pytest -m gpu``
+with ``JAX_PLATFORMS=cuda,cpu``), on the GPU, and require per-sample cost
+agreement at rel-tol 1e-4.
 
 A committed golden dump (``tests/resources/cost_parity_golden.json``) pins
 the absolute values so regressions in the cost formulas are caught even
@@ -41,7 +40,7 @@ GOLDEN_PATH = os.path.join(
 REL_TOL = 1e-4
 
 
-def _scenario(backend: str):
+def _scenario():
     spec = SolverSpec(
         is_omni=False,
         n_vx=5,
@@ -52,7 +51,6 @@ def _scenario(backend: str):
         scan_size=64,
         seg_size=128,
         drop_samples=True,
-        backend=backend,
     )
     limits = RobotCtrlLimits(
         vx_limits=LinearCtrlLimits(max_vel=1.0, max_acc=5.0, max_decel=10.0),
@@ -116,7 +114,7 @@ def test_parity_against_golden_dump():
     """Per-sample total costs must match the committed golden dump at
     rel-tol 1e-4 (the reference harness's tolerance,
     ``test_cost_parity.py:32``)."""
-    res = _scenario("xla")
+    res = _scenario()
     costs = _finite_costs(res)
     payload = {
         "schema_version": 1,
@@ -140,29 +138,17 @@ def test_parity_against_golden_dump():
     assert int(res.best_index) == golden["tests"]["dwa_mixed_costs"]["best_index"]
 
 
-def test_parity_xla_vs_pallas_math():
-    """The fused Pallas backend's distance formulation (|p|^2+|o|^2-2p.o)
-    must agree with the XLA path at rel-tol 1e-4 per sample. On CPU the
-    kernel is exercised through its interpret-equivalent math
-    (``fused_min_dist_sq_reference``); TPU runs use the real kernel."""
-    import kompass_core_tpu.ops.pallas_kernels as pk
+@pytest.mark.gpu
+def test_parity_cpu_vs_gpu(gpu):
+    """The same packed solve on the card and on the CPU: per-sample costs
+    at rel-tol 1e-4, the same winner."""
+    import jax
 
-    orig = pk.fused_min_dist_sq
-    try:
-        import jax
-
-        if jax.devices()[0].platform != "tpu":
-            pk.fused_min_dist_sq = (
-                lambda px, py, obs, sx, sy, m, variant="mxu": (
-                    pk.fused_min_dist_sq_reference(px, py, obs, sx, sy, m)
-                )
-            )
-        res_x = _scenario("xla")
-        res_p = _scenario("pallas")
-    finally:
-        pk.fused_min_dist_sq = orig
-    cx = _finite_costs(res_x)
-    cp = _finite_costs(res_p)
-    assert len(cx) == len(cp)
-    np.testing.assert_allclose(cx, cp, rtol=REL_TOL, atol=1e-5)
-    assert int(res_x.best_index) == int(res_p.best_index)
+    with jax.default_device(gpu):
+        res_g = _scenario()
+    with jax.default_device(jax.devices("cpu")[0]):
+        res_c = _scenario()
+    np.testing.assert_allclose(
+        _finite_costs(res_g), _finite_costs(res_c), rtol=REL_TOL, atol=1e-5
+    )
+    assert int(res_g.best_index) == int(res_c.best_index)

@@ -199,27 +199,6 @@ def test_footprints(tmp_path):
     assert OmniDirectionalControl is not None
 
 
-def test_require_backend_or_cpu_force_env():
-    """KOMPASS_TPU_FORCE_CPU pins CPU without probing the remote backend
-    (demos/CI on hosts where the accelerator is up but slow). Must run in
-    a subprocess: the pin must happen before the first backend init."""
-    import subprocess
-    import sys
-
-    code = (
-        "import os; os.environ['KOMPASS_TPU_FORCE_CPU'] = '1';"
-        "from kompass_core_tpu.utils.runtime import require_backend_or_cpu;"
-        "devs = require_backend_or_cpu();"
-        "print([d.platform for d in devs])"
-    )
-    r = subprocess.run(
-        [sys.executable, "-c", code], capture_output=True, text=True,
-        timeout=120,
-    )
-    assert r.returncode == 0, r.stderr[-500:]
-    assert "cpu" in r.stdout.lower()
-
-
 def test_setup_logging_reconfigure_replaces_file_handler(tmp_path):
     """Calling setup_logging twice must leave exactly ONE file sink on
     the root logger (the reference appends a second handler and logs

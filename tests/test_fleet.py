@@ -100,8 +100,9 @@ def test_fleet_sharded_matches_single_device():
 
 
 def test_sample_parallel_argmin_matches_global():
-    """Splitting the omega axis across chips + ICI argmin combine must give
-    the same winner as the single-chip solve over the full window."""
+    """Splitting the omega axis across devices + cross-device argmin
+    combine must give the same winner as the single-device solve over the
+    full window."""
     devices = jax.devices()[:4]
     mesh = Mesh(np.array(devices), axis_names=("sp",))
 
@@ -147,9 +148,8 @@ def test_sample_parallel_argmin_matches_global():
 
 def test_mesh_chunked_map_matches_plain():
     """The sharded solver runs each chip's shard as a lax.map over
-    chunk_size-row blocks inside the program (BATCH_CLIFF.json: the
-    vmapped batch dim's divisibility sets the tile efficiency; 64 is
-    the production chunk). Tiny chunk here to force the map path AND a
+    chunk_size-row blocks inside the program (64 is the production
+    chunk). Tiny chunk here to force the map path AND a
     ragged in-program pad (6 local rows, chunk 4 -> pad 2)."""
     devices = jax.devices()
     mesh = Mesh(np.array(devices), axis_names=("robots",))

@@ -363,7 +363,7 @@ def test_peer_prediction_k_ticks_keep_crossing_robots_apart():
 
 
 def test_peer_prediction_k_ticks_mesh_keeps_crossing_robots_apart():
-    """Mesh form of the crossing test (VERDICT r4 #1): the two crossing
+    """Mesh form of the crossing test: the two crossing
     robots land on DIFFERENT shards of the 8-device mesh (rows 0 and 1,
     one robot per device after padding), the k-tick program all-gathers
     the live peer state once per tick, and the integrated tracks must
@@ -607,7 +607,7 @@ def test_split_mover_sweep_bit_identical_to_tail_slot():
     the same point union, zero-velocity rows bit-equal static — so both
     forms must produce BIT-IDENTICAL commands on identical inputs,
     including crossing movers, empty slots, and NaN pads. (This is the
-    claim that lets MOVING_BENCH.json keep whichever form is faster.)"""
+    claim that lets a benchmark keep whichever form is faster.)"""
     s, v, r, a = _free_inputs()
     tracked_cases = [
         None,

@@ -825,11 +825,10 @@ def test_peer_avoidance_single_robot_identity():
 
 
 def test_peer_avoidance_head_on_no_collision_on_mesh():
-    """The round-4 gap (VERDICT r4 weak #1): mutual avoidance now
-    COMPOSES with multi-chip sharding. The same head-on scenario runs
+    """Mutual avoidance COMPOSES with multi-device sharding. The same head-on scenario runs
     with the two robots on different shards of the 8-device mesh — the
     peer state crosses chips as one bounded all-gather per tick
-    (SCALING_HLO.json fleet_v2_tick_peers_mesh) — and must keep the
+    (tests/test_scaling_hlo.py) — and must keep the
     same safe separation the single-device fleet does."""
     import jax
 

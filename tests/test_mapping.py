@@ -454,37 +454,103 @@ def test_partial_fov_blind_sector_stays_unexplored():
     )
 
 
-def test_bin_min_dense_matches_scatter():
-    """The TPU dense bin-min (compare/select/min-reduce) must equal the
-    scatter segment_min bit-for-bit, incl. empty bins (inf), garbage
-    bins from NaN angles, and duplicate minima."""
-    import jax.numpy as jnp
+def _cloud(case):
+    rng = np.random.default_rng(11)
+    # bin centres, so float32 and float64 binning agree
+    a = (np.arange(12) + 0.5) * (2 * np.pi / 36)
+    r = rng.uniform(0.5, 9.0, 12)
+    pts = np.stack([r * np.cos(a), r * np.sin(a), np.zeros(12)], axis=1)
+    if case == "all_filtered":
+        pts[:, 2] = 5.0  # every point above max_z: every bin empty
+    elif case == "nan_points":
+        pts[3] = np.nan
+        pts[7, 2] = np.nan
+    elif case == "origin_and_duplicates":
+        pts[0] = 0.0  # origin point, filtered
+        pts[5] = pts[4]  # duplicate minimum in one bin
+    return pts.astype(np.float32)
 
-    from kompass_core_tpu.ops.mapping import _bin_min
 
-    rng = np.random.default_rng(7)
-    n, B = 5000, 360
-    bins = rng.integers(0, B, n).astype(np.int32)
-    bins[:100] = 0  # heavy duplicate bin
-    dist = rng.uniform(0.1, 30.0, n).astype(np.float32)
-    dist[50] = dist[60]  # duplicate minima candidates
-    # leave bins 100..110 empty
-    mask = (bins < 100) | (bins > 110)
-    bins = np.where(mask, bins, 99).astype(np.int32)
-    a = np.asarray(_bin_min(jnp.asarray(dist), jnp.asarray(bins), B, dense=False))
-    b = np.asarray(_bin_min(jnp.asarray(dist), jnp.asarray(bins), B, dense=True))
-    np.testing.assert_array_equal(a, b)
-    assert np.isinf(a[105])  # empty bin stays inf in both
+@pytest.mark.parametrize(
+    "case", ["empty_bins", "all_filtered", "nan_points",
+             "origin_and_duplicates"])
+def test_pointcloud_bin_min_matches_numpy(case):
+    """segment_min binning equals a float64 NumPy bin-min at the edges:
+    empty bins clip to range_max, a cloud with every point filtered is
+    range_max everywhere, NaN points contribute nothing."""
+    from oracle.safety_impl import cloud_to_scan
+
+    from kompass_core_tpu.ops.mapping import pointcloud_to_scan
+
+    pts = _cloud(case)
+    got = np.asarray(pointcloud_to_scan(pts, 36, 10.0, -1.0, 1.0))
+    ref, _ = cloud_to_scan(pts, 36, 10.0, -1.0, 1.0)
+    np.testing.assert_allclose(got, ref, rtol=1e-6)
+    if case == "all_filtered":
+        assert (got == 10.0).all()
+
+
+@pytest.mark.parametrize("case", ["invalid_beams", "all_invalid",
+                                  "non_finite"])
+def test_lookup_gather_equals_banded_at_edges(case):
+    """The default gather lookup and the banded one-hot dot agree bit for
+    bit on invalid, all-invalid and non-finite beams."""
+    import os
+
+    from kompass_core_tpu.ops.mapping import (
+        MapperSpec, scan_to_grid, scan_to_grid_bayesian,
+    )
+
+    spec = MapperSpec(grid_height=64, grid_width=64, num_bins=720,
+                      resolution=0.05)
+    rng = np.random.default_rng(12)
+    ranges = rng.uniform(0.1, 3.0, 720).astype(np.float32)
+    if case == "invalid_beams":
+        ranges[::7] = 0.0
+    elif case == "all_invalid":
+        ranges[:] = 0.0
+    else:
+        ranges[::5] = np.nan
+        ranges[1::5] = np.inf
+    prev = np.full((64, 64), 0.5, np.float32)
+    out = {}
+    old = {k: os.environ.get(k) for k in
+           ("KOMPASS_TPU_LOOKUP", "KOMPASS_TPU_BAND_WIN")}
+    try:
+        os.environ["KOMPASS_TPU_BAND_WIN"] = "128"
+        for form in ("gather", "banded"):
+            os.environ["KOMPASS_TPU_LOOKUP"] = form
+            occ, prob = scan_to_grid_bayesian(
+                spec, ranges, prev, 0.6, 0.1, 0.9, 0.1, 20.0, 0.2)
+            out[form] = (np.asarray(scan_to_grid(spec, ranges)),
+                         np.asarray(occ), np.asarray(prob))
+    finally:
+        for k, v in old.items():
+            os.environ.pop(k, None) if v is None else os.environ.__setitem__(k, v)
+    for a, b in zip(out["gather"], out["banded"]):
+        np.testing.assert_array_equal(a, b)
+    if case == "all_invalid":
+        assert (out["gather"][0] == -1).all()  # nothing observed
+
+
+def test_lookup_form_rejects_unknown_names(monkeypatch):
+    from kompass_core_tpu.ops.mapping import MapperSpec, scan_to_grid
+
+    monkeypatch.setenv("KOMPASS_TPU_LOOKUP", "full")
+    spec = MapperSpec(grid_height=16, grid_width=16, num_bins=64,
+                      resolution=0.05)
+    with pytest.raises(ValueError, match="KOMPASS_TPU_LOOKUP"):
+        scan_to_grid(spec, np.ones(64, np.float32))
 
 
 def test_banded_lookup_bit_equals_full():
     """The banded candidate lookup (static per-tile bin windows,
-    ops/mapping._banded_plan) must reproduce the full one-hot dot
+    ops/mapping._banded_plan) must reproduce the default gather lookup
     BIT-exactly: each one-hot row has exactly one nonzero, so the
-    banded dot accumulates the same single product. Covers the plain
+    banded dot accumulates the same single product a full-width dot
+    would, and every index column is bf16-exact. Covers the plain
     and Bayesian kernels, invalid beams, and the near-sensor
-    full-width-rectangle paste. The pallas form runs in interpret mode
-    on CPU — the same kernel the TPU runs compiled."""
+    full-width-rectangle paste."""
     import os
 
     from kompass_core_tpu.ops.mapping import (
@@ -513,24 +579,19 @@ def test_banded_lookup_bit_equals_full():
             ranges = rng.uniform(0.1, 3.0, 720).astype(np.float32)
             ranges[rng.integers(0, 720, 40)] = 0.0  # invalid beams
             prev = rng.uniform(0.2, 0.8, (64, 64)).astype(np.float32)
-            os.environ["KOMPASS_TPU_LOOKUP"] = "full"
+            os.environ["KOMPASS_TPU_LOOKUP"] = "gather"
             g_f = np.asarray(scan_to_grid(spec, ranges))
             occ_f, p_f = scan_to_grid_bayesian(
                 spec, ranges, prev, 0.6, 0.1, 0.9, 0.1, 20.0, 0.2
             )
-            for mode in ("banded", "pallas"):
-                os.environ["KOMPASS_TPU_LOOKUP"] = mode
-                g_b = np.asarray(scan_to_grid(spec, ranges))
-                occ_b, p_b = scan_to_grid_bayesian(
-                    spec, ranges, prev, 0.6, 0.1, 0.9, 0.1, 20.0, 0.2
-                )
-                np.testing.assert_array_equal(g_f, g_b, err_msg=mode)
-                np.testing.assert_array_equal(
-                    np.asarray(occ_f), np.asarray(occ_b), err_msg=mode
-                )
-                np.testing.assert_array_equal(
-                    np.asarray(p_f), np.asarray(p_b), err_msg=mode
-                )
+            os.environ["KOMPASS_TPU_LOOKUP"] = "banded"
+            g_b = np.asarray(scan_to_grid(spec, ranges))
+            occ_b, p_b = scan_to_grid_bayesian(
+                spec, ranges, prev, 0.6, 0.1, 0.9, 0.1, 20.0, 0.2
+            )
+            np.testing.assert_array_equal(g_f, g_b)
+            np.testing.assert_array_equal(np.asarray(occ_f), np.asarray(occ_b))
+            np.testing.assert_array_equal(np.asarray(p_f), np.asarray(p_b))
     finally:
         for k, v in old.items():
             os.environ.pop(k, None) if v is None else os.environ.__setitem__(k, v)

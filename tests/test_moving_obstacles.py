@@ -3,8 +3,8 @@ evaluate each obstacle at its constant-velocity predicted position
 ``obs + v * t * dt`` along the rollout.
 
 The reference's rollout assumes a static world
-(``trajectory_sampler.cpp:118-179``); this mode is the TPU-natural
-extension — two extra FMAs per (pose, obstacle) pair in the same fused
+(``trajectory_sampler.cpp:118-179``); this mode is the natural
+tensor-program extension — two extra FMAs per (pose, obstacle) pair in the same fused
 sweep. Contracts pinned here:
 
 1. zero velocity == static, bit-for-bit (adding 0.0 is exact);
@@ -122,31 +122,6 @@ def test_zero_velocity_box_robot_parity():
     out_s = np.asarray(make_packed_dwa_solver(s_spec)(_packed_case(s_spec)))
     out_m = np.asarray(make_packed_dwa_solver(m_spec)(_packed_case(m_spec)))
     np.testing.assert_array_equal(out_s, out_m)
-
-
-def test_moving_traces_on_every_backend():
-    """Round-5 close of the feature fork (VERDICT r4 #6): a
-    moving-obstacle solve must TRACE on every public backend — no
-    NotImplementedError reachable from a config. (The Pallas sweeps
-    carry the time term as a 7-feature dot; compiled-numeric parity is
-    pinned in tests/test_pallas_kernels.py interpret-mode cases and
-    asserted on TPU by benchmark/moving_bench.py.)"""
-    import jax
-    import jax.numpy as jnp
-
-    shapes = {}
-    for backend in ("xla", "pallas", "pallas_vpu", "pallas_v1"):
-        spec = dataclasses.replace(SPEC_MOVING, backend=backend)
-        out = jax.eval_shape(
-            make_packed_dwa_solver(spec),
-            jnp.zeros(packed_input_size(spec), jnp.float32),
-        )
-        shapes[backend] = jax.tree_util.tree_map(
-            lambda a: (a.shape, a.dtype), out
-        )
-    assert shapes["pallas"] == shapes["xla"]
-    assert shapes["pallas_vpu"] == shapes["xla"]
-    assert shapes["pallas_v1"] == shapes["xla"]
 
 
 # ---------------------------------------------------------------------------

@@ -37,8 +37,8 @@ from kompass_core_tpu.ops.window import (
 )
 
 from oracle import reference_impl as oracle
+from oracle.parity import compare_tick, run_oracle
 
-REL_TOL = 1e-4
 N_SCENARIOS = int(os.environ.get("KOMPASS_ORACLE_SCENARIOS", "30"))
 
 SEG_SIZE = 128
@@ -133,15 +133,6 @@ def _scenario_inputs(rng, is_omni, active_points):
     )
 
 
-def _oracle_slot(spec, rec):
-    """Map an oracle grid record to the solver's flat grid index."""
-    i, j, _, _, _, is_omega_block = rec
-    if not spec.is_omni:
-        return i * spec.n_omega + j
-    blk = spec.n_vy + spec.n_omega
-    return i * blk + (spec.n_vy + j if is_omega_block else j)
-
-
 _SOLVERS = {}
 
 
@@ -193,153 +184,13 @@ def _run_solver(spec, sc):
     return res, window
 
 
-def _run_oracle(spec, sc, n_lin, n_ang, collision_box=None):
-    return oracle.evaluate_tick(
-        current_vel=sc["current_vel"],
-        start_pose=sc["start_pose"],
-        limits=sc["limits"],
-        time_step=0.1,
-        n_lin_samples=n_lin,
-        n_ang_samples=n_ang,
-        is_omni=spec.is_omni,
-        n_points=sc["active_points"],
-        num_ctrl_points=spec.num_ctrl_points,
-        drop_samples=spec.drop_samples,
-        obs_xy=sc["obs"],
-        seg_x=sc["seg_x"],
-        seg_y=sc["seg_y"],
-        seg_arc=sc["seg_arc"],
-        seg_total_length=sc["seg_total"],
-        ref_path_length=sc["ref_total"],
-        weights=sc["weights"],
-        acc_limits=(sc["limits"][1], sc["limits"][4], sc["limits"][7]),
-        max_obstacles_dist=sc["max_obs_dist"],
-        robot_radius=sc["radius"],
-        collision_margin=sc["margin"],
-        collision_box=collision_box,
-    )
-
-
-def _boundary_margin(sc, traj_or_vel, spec, collision_box=None):
-    """Oracle-side closest approach of a sample's rollout to the collision
-    boundary — used to tolerate f32/f64 flips only on knife-edge samples."""
-    vx, vy, w = traj_or_vel
-    x, y, yaw = sc["start_pose"]
-    if collision_box is None:
-        r = sc["radius"] + sc["margin"]
-    else:
-        r = max(sc["margin"], 1e-6)
-    min_gap = float("inf")
-    for _ in range(sc["active_points"] - 1):
-        x, y, yaw = oracle.state_update(x, y, yaw, vx, vy, w, 0.1)
-        for k in range(sc["obs"].shape[0]):
-            if collision_box is None:
-                d = math.hypot(sc["obs"][k, 0] - x, sc["obs"][k, 1] - y)
-            else:
-                c, s = math.cos(yaw), math.sin(yaw)
-                dxw = sc["obs"][k, 0] - x
-                dyw = sc["obs"][k, 1] - y
-                bx = c * dxw + s * dyw
-                by = -s * dxw + c * dyw
-                ex = max(abs(bx) - collision_box[0], 0.0)
-                ey = max(abs(by) - collision_box[1], 0.0)
-                d = math.hypot(ex, ey)
-            min_gap = min(min_gap, abs(d - r))
-    return min_gap
-
-
 def _compare_tick(spec, sc, n_lin, n_ang, collision_box=None):
-    res, window = _run_solver(spec, sc)
-    tick = _run_oracle(spec, sc, n_lin, n_ang, collision_box=collision_box)
-
-    solver_costs = np.asarray(res.costs)
-    S = spec.num_samples
-    oracle_costs = np.full(S, np.inf)
-    oracle_vels = {}
-    for rec, traj, total in tick.samples:
-        s = _oracle_slot(spec, rec)
-        assert 0 <= s < S, f"slot {s} out of range (record {rec})"
-        if traj.admissible:
-            oracle_costs[s] = total
-            oracle_vels[s] = (rec[2], rec[3], rec[4])
-
-    # 1) window walk parity: every oracle sample slot is inside the padded
-    #    grid and slots the oracle never generated must be inadmissible
-    #    (unless knife-edge, checked below)
-    mism = []
-    for s in range(S):
-        o_adm = np.isfinite(oracle_costs[s])
-        s_adm = np.isfinite(solver_costs[s])
-        if o_adm != s_adm:
-            mism.append(s)
-    # tolerate only knife-edge collision flips (f32 vs f64 rounding)
-    for s in mism:
-        vel = oracle_vels.get(s)
-        if vel is None:
-            # oracle never sampled this slot (grid-walk boundary float
-            # disagreement or collision drop) — find the velocity from the
-            # solver grid records for margin analysis
-            for rec, traj, _ in tick.samples:
-                if _oracle_slot(spec, rec) == s:
-                    vel = (rec[2], rec[3], rec[4])
-                    break
-        assert vel is not None, (
-            f"slot {s}: solver admissible but oracle never sampled it"
-        )
-        gap = _boundary_margin(sc, vel, spec, collision_box)
-        assert gap < 5e-4, (
-            f"slot {s}: admissibility mismatch with boundary gap {gap:.2e} "
-            f"(oracle={np.isfinite(oracle_costs[s])}, "
-            f"solver={np.isfinite(solver_costs[s])})"
-        )
-
-    # 2) per-sample cost parity on the agreeing admissible set
-    both = [
-        s
-        for s in range(S)
-        if np.isfinite(oracle_costs[s]) and np.isfinite(solver_costs[s])
-    ]
-    assert len(both) > 0 or not tick.found
-    if both:
-        np.testing.assert_allclose(
-            solver_costs[both],
-            oracle_costs[both],
-            rtol=REL_TOL,
-            atol=1e-5,
-            err_msg="per-sample total cost drift vs reference oracle",
-        )
-
-    # 3) winner parity
-    if not mism:
-        assert bool(res.found) == tick.found
-    if tick.found and bool(res.found):
-        np.testing.assert_allclose(
-            float(res.cost), tick.min_cost, rtol=5 * REL_TOL, atol=1e-5
-        )
-        # index must match when the oracle winner is a clear minimum
-        finite = np.sort(oracle_costs[np.isfinite(oracle_costs)])
-        if len(finite) > 1 and finite[1] - finite[0] > 1e-3 * max(
-            abs(finite[0]), 1e-3
-        ):
-            winner_slot = _oracle_slot(spec, tick.samples[tick.winner][0])
-            assert int(res.best_index) == winner_slot
-            # winning velocity command parity
-            wrec, wtraj, _ = tick.samples[tick.winner]
-            vel0 = np.asarray(res.velocities)[0]
-            np.testing.assert_allclose(
-                vel0,
-                [wtraj.vx[0], wtraj.vy[0], wtraj.omega[0]],
-                rtol=1e-4,
-                atol=1e-6,
-            )
-            # winning rollout parity over the active horizon
-            pw = np.asarray(res.path)[: sc["active_points"]]
-            np.testing.assert_allclose(
-                pw[:, 0], wtraj.path_x, rtol=1e-3, atol=2e-4
-            )
-            np.testing.assert_allclose(
-                pw[:, 1], wtraj.path_y, rtol=1e-3, atol=2e-4
-            )
+    res, _window = _run_solver(spec, sc)
+    tick = run_oracle(
+        sc, n_lin, n_ang, spec.is_omni, spec.num_ctrl_points,
+        spec.drop_samples, collision_box=collision_box,
+    )
+    compare_tick(spec, sc, res, tick, collision_box=collision_box)
 
 
 def _spec(is_omni, n_lin, n_ang, drop, collision_box=None):

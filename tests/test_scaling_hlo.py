@@ -1,4 +1,4 @@
-"""Compiled-HLO scaling proof (VERDICT r2 #1).
+"""Compiled-HLO scaling proof.
 
 The multi-chip scaling claim is that the steady-state fleet programs are
 embarrassingly parallel over the robot axis: compiled over a real mesh,
@@ -55,7 +55,7 @@ ENTRY %main {
 }
 """
     counts = count_collectives(hlo)
-    # tuple-shaped async -start forms must count (real-TPU HLO uses them
+    # tuple-shaped async -start forms must count (accelerator HLO uses them
     # for every async collective); -done must not double count; a
     # computation NAME mentioning a collective must not count
     assert counts == {
@@ -131,7 +131,7 @@ def test_fleet_v2_split_tracked_tick_has_zero_collectives(mesh):
 
 
 def test_fleet_v2_peer_mesh_tick_has_exactly_one_all_gather(mesh):
-    """Mesh-sharded mutual avoidance (VERDICT r4 #1): the peer state —
+    """Mesh-sharded mutual avoidance: the peer state —
     the [N, 7] state+velocity block, N*28 bytes — is the ONLY thing that
     crosses chips, as exactly one all-gather per tick. Any second
     collective would mean the partitioner resharded something we claim

@@ -1,6 +1,6 @@
 """run_ticks_on_device: K carry-chained control ticks per dispatch.
 
-The RTT-amortization serving API (VERDICT r2 #7). Semantics under test:
+The round-trip-amortizing serving API. Semantics under test:
 tick 0 of the K-loop is the same program as a single tick; the state
 integrates on device through the solver's own kinematics; the follower
 carry persists across calls; goals are reached closed-loop entirely on
